@@ -1,4 +1,4 @@
-"""minnow-tpu: a TPU-native lossless codec framework for block-structured
+"""minnow-tpu: a JAX lossless codec framework for block-structured
 scientific data.
 
 Capabilities mirror phil-mansfield/minnow (reference: /root/reference):
@@ -16,9 +16,9 @@ Capabilities mirror phil-mansfield/minnow (reference: /root/reference):
   (ref go/config/, scripts/).
 
 Unlike the Go/Cython reference, all data transforms (quantize/dequantize,
-delta coding, bit pack/unpack, sub-cell gather/scatter) run as JAX/XLA/Pallas
-programs on TPU, with independent blocks sharded data-parallel across a
-device mesh.  The byte format produced is identical to the reference writer
+delta coding, bit pack/unpack, sub-cell gather/scatter) run as JAX/XLA
+programs on the accelerator (an NVIDIA GPU), with independent blocks
+sharded data-parallel across a device mesh.  The byte format produced is identical to the reference writer
 (see docs/FORMAT.md and core/spec.py for the normative semantics).
 
 NOTE: importing ``minnow_tpu.ops`` or ``minnow_tpu.parallel`` enables

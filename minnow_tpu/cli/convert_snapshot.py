@@ -26,9 +26,9 @@ def main(argv=None):
     device = "--device" in argv
     if device:
         argv.remove("--device")
-        from ..utils import backend_guard
+        from ..utils import device as device_mod
 
-        device = backend_guard.device_or_host(device)
+        device_mod.announce("convert_snapshot")
     if not argv:
         raise SystemExit(__doc__)
     mode = argv[0]

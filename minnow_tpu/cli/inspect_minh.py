@@ -88,9 +88,9 @@ def main(argv=None):
     device = "--device" in argv
     if device:
         argv.remove("--device")
-        from ..utils import backend_guard
+        from ..utils import device as device_mod
 
-        device = backend_guard.device_or_host(device)
+        device_mod.announce("inspect_minh")
     plot_out = None
     if "--plot" in argv:
         i = argv.index("--plot")

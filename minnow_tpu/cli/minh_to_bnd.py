@@ -11,10 +11,9 @@ device encoder (formats/boundary_device.py).
 
 Note on bytes: this conversion re-encodes *dithered* decodes (as the
 reference does with Go's unseeded RNG, ref go/group.go:308), so output
-bytes depend on the dither stream -- and the host (Philox) and device
-(counter-hash) uniform streams are backend-specific by design
-(core/dither.py).  With ``dither="none"``/``"midpoint"`` host and device
-paths produce byte-identical boundary files (tested).
+bytes depend on the dither stream.  Host and device readers compute one
+defined stream in every mode (core/dither.py), so host and device runs
+produce byte-identical boundary files.
 """
 
 from __future__ import annotations
@@ -87,9 +86,9 @@ def main(argv=None):
     device = "--device" in argv
     if device:
         argv.remove("--device")
-        from ..utils import backend_guard
+        from ..utils import device as device_mod
 
-        device = backend_guard.device_or_host(device)
+        device_mod.announce("minh_to_bnd")
     if len(argv) != 4:
         raise SystemExit(__doc__)
     cells = int(argv[0])

@@ -24,8 +24,8 @@ Type-index lines map canonical column names to storage types
   <name> q_float log|linear <min> <max> <eps>
 
 With ``--device`` the float/int columns are encoded through the sharded
-TPU pipeline (parallel/pipeline.py) instead of the host codec; the output
-bytes are identical.
+device pipeline (parallel/pipeline.py) instead of the host codec; the
+output bytes are identical.
 
 ``--jobs=N`` converts N catalog files concurrently (the per-file
 fan-out of the reference's sequential outer loop,
@@ -52,9 +52,8 @@ from ..utils.name_index import open_index
 
 # native-parse worker count.  The reference hard-codes 16 goroutines
 # (ref text_to_minh.go:35), but std::threads oversubscribed past the
-# core count measurably hurt (16 threads on a 4-core host: ~190 MB/s
-# pipelined vs ~236 at 4 -- spawn cost + contention with the writer's
-# encode pool), so cap at the machine.
+# core count add spawn cost and contend with the writer's encode pool,
+# so cap at the machine.
 THREADS = min(16, os.cpu_count() or 16)
 
 
@@ -216,9 +215,8 @@ def convert_file(cfg, idx, types, wanted, hlist, out, device=False,
 
     n_blocks = fr.blocks()
     # prefetch depth 1: exactly one text block parses ahead of the
-    # encode.  Depth 2 was measured SLOWER on the 4-core host (two
-    # 16-thread parses contend with the writer's 4 encode threads:
-    # 231 vs 240 MB/s mean over 3 runs) -- don't deepen it again.
+    # encode.  Deeper prefetch runs two multi-threaded parses at once,
+    # which contend with the writer's encode threads.
     with ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(fr.block, 0, names, dtypes)
         for b in range(n_blocks):
@@ -368,9 +366,9 @@ def main(argv=None):
     device = "--device" in argv
     if device:
         argv.remove("--device")
-        from ..utils import backend_guard
+        from ..utils import device as device_mod
 
-        device = backend_guard.device_or_host(device)
+        device_mod.announce("text_to_minh")
     block_size = None
     jobs = 1
     for a in list(argv):

@@ -12,9 +12,8 @@ keyed on ``(seed, block_id, element)`` and identical on every path:
   lowbias32 avalanche hash.  The host reader computes the SAME stream
   in pure numpy below (_np_fold_in/_np_hash_u -- bit-for-bit the jax
   algorithm, so opening a file never initializes an accelerator
-  runtime), and the device bulk readers run it inside XLA / the Pallas
-  decode kernel.  Host and device reads of the same file agree
-  bitwise in every mode.
+  runtime), and the device bulk readers run it inside XLA.  Host and
+  device reads of the same file agree bitwise in every mode.
 * ``none`` (u=0) and ``midpoint`` (u=0.5) are used for strict
   cross-checking.
 * ``philox`` is the legacy host stream from rounds 1-4 (numpy Philox
@@ -75,8 +74,7 @@ def _np_fold_in(seed: int, data):
 def _np_hash_u(c, k1, k2):
     """numpy twin of ``ops/codec.dither_hash_u``: lowbias32 avalanche of
     ``(c + k2) ^ k1`` with the mantissa-fill float transform.  uint32 in,
-    float32 u in [0, 1) out -- bit-identical to the XLA / Pallas-kernel
-    stream."""
+    float32 u in [0, 1) out -- bit-identical to the XLA stream."""
     with np.errstate(over="ignore"):
         x = (np.asarray(c, np.uint32) + np.uint32(k2)) ^ np.uint32(k1)
         x = x ^ (x >> np.uint32(16))

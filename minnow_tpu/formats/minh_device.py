@@ -1,4 +1,4 @@
-"""Device-batched minh reads: decode whole columns through the TPU
+"""Device-batched minh reads: decode whole columns through the device
 pipeline.
 
 The host reader (formats/minh.py) decodes block-by-block in numpy; for
@@ -7,9 +7,9 @@ unpacks + dequantizes all blocks of a column in batched width-specialized
 device calls (ops/codec.py), bucketed by (block length, width).
 
 Dither: the device counter-hash stream keyed on (seed, global block
-id) -- deterministic, fused in-kernel on the fast path (see
-ops/codec.dither_hash_u); ``none`` mode is bit-identical to the host
-reader.
+id) -- deterministic (see ops/codec.dither_hash_u) and the same
+stream the host reader computes, so every mode is bit-identical to the
+host reader.
 """
 
 from __future__ import annotations
@@ -21,10 +21,6 @@ from ..ops import bitpack, codec
 from . import minh as minh_mod
 
 __all__ = ["read_floats", "read_ints"]
-
-# the shared Pallas bulk-decode fast path (see device_common.group_decode)
-from . import device_common  # noqa: E402
-from .device_common import group_decode as _group_decode  # noqa: E402
 
 
 def _gather_raw(reader, c: int):
@@ -79,22 +75,9 @@ def read_floats(reader: minh_mod.Reader, names, dither: str = None,
             # and device uniform-dither reads agree bitwise
             block_ids = np.asarray(
                 [reader._block_idx(c, b) for b in ids], np.int64)
-            # all-native-width decode when every bound fits (the common
-            # case); bit-identical to the generic path
-            fast = (bits <= 32 and pixels.max() <= (1 << 24)
-                    and np.abs(mins).max() < (1 << 30))
-            dec = None
-            if fast and bits:
-                dec = _group_decode(words, mins, lows, highs, pixels,
-                                    periodic, int(bits), int(n), dither,
-                                    block_ids=block_ids, seed=seed)
-            if dec is None:
-                decode = codec.decode_float_blocks32 if fast \
-                    else codec.decode_float_blocks
-                dec = np.asarray(decode(
-                    words, mins, lows, highs, pixels, periodic,
-                    block_ids, int(bits), int(n), dither=dither,
-                    seed=seed))
+            dec = codec.decode_float_bucket(
+                words, mins, lows, highs, pixels, periodic, block_ids,
+                bits, n, dither=dither, seed=seed)
             for row, b in enumerate(ids):
                 parts[b] = dec[row]
 
@@ -127,13 +110,8 @@ def read_ints(reader: minh_mod.Reader, names):
                 if bits:
                     words[row] = bitpack.bytes_to_words(payload, bits, n)
                 mins[row] = mn
-            dec = None
-            if bits:
-                dec = device_common.group_decode_ints(
-                    words, mins, int(bits), int(n))
-            if dec is None:
-                dec = np.asarray(codec.decode_int_blocks(
-                    words, mins, int(bits), int(n)))
+            dec = np.asarray(codec.decode_int_blocks(
+                words, mins, int(bits), int(n)))
             for row, b in enumerate(ids):
                 parts[b] = dec[row]
         out[name] = np.concatenate(parts) if parts else \

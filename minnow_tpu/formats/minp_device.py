@@ -1,5 +1,5 @@
 """Device-batched minp reads: decode a whole snapshot file's sub-cell
-blocks through the TPU pipeline.
+blocks through the device pipeline.
 
 The host reader (formats/minp.py) decodes 3*subCells**3 blocks one at a
 time; here each axis's blocks decode in width-bucketed batched device
@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops import bitpack, codec
-from . import device_common, minp as minp_fmt
+from . import minp as minp_fmt
 
 __all__ = ["read_vectors"]
 
@@ -62,21 +62,9 @@ def read_vectors(reader: minp_fmt.Reader, dither: str = None,
                 mins[row] = mn
                 lows[row], highs[row], pixels[row], periodic[row] = params
             block_ids = np.asarray([k * s3 + sc for sc in ids], np.int64)
-            fast = (bits <= 32 and pixels.max() <= (1 << 24)
-                    and np.abs(mins).max() < (1 << 30))
-            dec = None
-            if fast and bits:
-                dec = device_common.group_decode(
-                    words, mins, lows, highs, pixels, periodic,
-                    int(bits), int(n_sub3), dither,
-                    block_ids=block_ids, seed=seed)
-            if dec is None:
-                decode = codec.decode_float_blocks32 if fast \
-                    else codec.decode_float_blocks
-                dec = np.asarray(decode(
-                    words, mins, lows, highs, pixels, periodic,
-                    block_ids, int(bits), int(n_sub3), dither=dither,
-                    seed=seed))
+            dec = codec.decode_float_bucket(
+                words, mins, lows, highs, pixels, periodic, block_ids,
+                bits, n_sub3, dither=dither, seed=seed)
             for row, sc in enumerate(ids):
                 out_rows[sc] = dec[row]
 

@@ -1,4 +1,4 @@
-"""Device-side (JAX/XLA/Pallas) codec ops.
+"""Device-side (JAX/XLA) codec ops.
 
 Importing this subpackage enables ``jax_enable_x64`` BEFORE any jax
 backend initializes: the codec operates on int64 column data and the

@@ -1,18 +1,18 @@
-"""Word-parallel fixed-width bit packing for TPU (JAX/XLA).
+"""Word-parallel fixed-width bit packing (JAX/XLA).
 
 The reference packs one element at a time through a 9-byte shuffle buffer
-(ref go/bit/bit.go:100-131; python/cy_bit.pyx:15-96).  A TPU has no byte
-addressing, so the stream is reformulated word-parallel:
+(ref go/bit/bit.go:100-131; python/cy_bit.pyx:15-96).  Here the stream is
+reformulated word-parallel, so every element of a batch packs at once:
 
 * the byte stream is viewed as little-endian uint32 words;
 * elements are processed in tiles of 32: a width-``b`` tile occupies
   exactly ``32*b`` bits = ``b`` words, so for fixed ``b`` the
   (element, word, shift) contribution pattern is static;
 * packing a tile is an unrolled sequence of shift/OR ops, vectorized
-  across all tiles (the tile axis is the vector axis) -- pure VPU work
-  with no gathers, scatters or data-dependent control flow;
-* 64-bit values travel as (lo, hi) uint32 pairs so the hot loop never
-  needs emulated 64-bit arithmetic.
+  across all tiles (the tile axis is the vector axis) -- elementwise
+  work with no gathers, scatters or data-dependent control flow;
+* 64-bit values travel as (lo, hi) uint32 pairs so the hot loop runs
+  in 32-bit integer arithmetic.
 
 Bit layout matches the reference exactly: element ``i`` occupies bits
 ``[i*b, (i+1)*b)`` of the stream, LSB-first (ref go/bit/bit.go spec;
@@ -55,7 +55,7 @@ def words_per_block(bits: int, n: int) -> int:
 
 def split_u64(x):
     """uint64 (or int64) array -> (lo, hi) uint32 pair.  32-bit inputs
-    (the all-native-width path) skip the 64-bit emulation entirely; for
+    (the all-native-width path) skip the 64-bit split entirely; for
     widths <= 32 the hi half is dead code XLA eliminates."""
     if x.dtype in (jnp.uint32, jnp.int32):
         lo = x.astype(jnp.uint32)
@@ -84,11 +84,8 @@ def _shift_parts(x, offs):
     ``offs[j]`` (mod 32), return the in-word and spill-word contributions
     as two (32, T) arrays, plus the per-row target word index.
 
-    Element rows, tile columns: the tile axis is the lane axis (fully
-    occupied for any T >= 128), shifts broadcast per row.  Vectorized
-    shifts + reductions are also the codegen shape Mosaic compiles
-    correctly -- long unrolled scalar-shift accumulation chains silently
-    drop bits on TPU (see tools/tpu_or_chain_repro.py)."""
+    Element rows, tile columns: the tile axis is the minor (contiguous)
+    axis, shifts broadcast per row."""
     s = (offs % 32).astype(np.uint32)  # (32,)
     w = offs // 32
     part_lo = x << s[:, None]
@@ -103,7 +100,7 @@ def _shift_parts(x, offs):
 def _segment_sum_words(parts, words_idx, bits: int, t: int):
     """Sum (32, T) contribution rows into (bits, T) words.  For fixed
     width the element->word map is monotone, so each word's contributors
-    are a contiguous row range: static slice + sublane sum-reduce
+    are a contiguous row range: static slice + row sum-reduce
     (OR == ADD, contributions occupy disjoint bits)."""
     rows = []
     for w in range(bits):
@@ -143,7 +140,7 @@ def _pack_tiles(lo_t, hi_t, bits: int):
 def _unpack_tiles(words_t, bits: int):
     """Inverse of :func:`_pack_tiles`: (T, bits) words -> (lo, hi) of
     shape (T, 32).  Word rows gathered by static index, per-row vector
-    shifts, tiles on the lane axis."""
+    shifts, tiles on the minor axis."""
     lo_mask, hi_mask = _masks(bits)
     offs = np.arange(_TILE, dtype=np.int64) * bits
     wt = words_t.T  # (bits, T)
@@ -224,11 +221,10 @@ def delta_pack_batch(x, mins, n, bits: int):
     """Fused ``(x - min) & mask -> pack`` at static width ``bits``: the
     second dispatch of the two-pass int encode (stats come from
     codec.int_block_stats).  Reads x (8 B/elem) and writes words
-    (bits/8) directly -- no u64 delta round-trip through HBM.  Tail
+    (bits/8) directly -- no u64 delta round-trip through memory.  Tail
     elements past each block's length ``n`` pack as zero, matching
     codec.prepare_int_blocks (ref go/group.go:242-255); for widths
-    <= 32 the deltas stay native u32 (no 64-bit emulation in the
-    pack)."""
+    <= 32 the deltas stay native u32."""
     mask = jax.lax.broadcasted_iota(
         jnp.int64, (1, x.shape[1]), 1) < n[:, None]
     d = jnp.where(mask, x - mins[:, None], 0)
@@ -249,8 +245,8 @@ def unpack_batch(words, bits: int, n: int):
 
 @partial(jax.jit, static_argnames=("bits", "n"))
 def unpack_batch32(words, bits: int, n: int):
-    """(B, W) words -> (B, n) uint32, for widths <= 32 (all-native-width
-    decode path: no 64-bit emulation)."""
+    """(B, W) words -> (B, n) uint32, for widths <= 32 (the
+    all-native-width decode path)."""
     if bits > 32:
         raise ValueError("unpack_batch32 requires bits <= 32")
     lo, _ = jax.vmap(lambda w: _unpack_1d(w, bits, n))(words)

@@ -43,15 +43,9 @@ __all__ = [
     "decode_int_blocks",
     "decode_float_blocks",
     "decode_float_blocks32",
+    "decode_float_bucket",
+    "padded_rows",
 ]
-
-
-def _use_reduce_precision() -> bool:
-    # TPU's X64 rewriter (f64 emulated as float pairs) has no rule for
-    # f64 reduce-precision; use a convert round-trip there instead.
-    import jax as _jax
-
-    return _jax.default_backend() != "tpu"
 
 
 def _rp32(x64):
@@ -63,20 +57,16 @@ def _rp32(x64):
     and f64 ops whose operands are upcasts and whose result is downcast
     get silently narrowed back to f32 (recreating the fusable pattern).
     ReducePrecision(8, 23) is an explicit numerical op the simplifier
-    never elides or fuses through; on TPU (where f64 ReducePrecision is
-    unimplemented) a f64->f32->f64 convert round-trip is used and the
-    jitted runtime validation (ops/validate.py, run by bench.py on chip)
-    gates that the roundings survive compilation.
+    never elides or fuses through; the jitted runtime validation
+    (ops/validate.py) gates that the roundings survive compilation on
+    whatever backend runs the codec.
 
     The whole float codec runs in f64 arithmetic (every f32 input value
     is exact in f64, and every f64 op on f32-valued operands is exact)
     with an ``_rp32`` after each operation the reference performs in
     float32 -- reproducing Go's op-by-op rounding exactly.
     """
-    if _use_reduce_precision():
-        return jax.lax.reduce_precision(x64, exponent_bits=8,
-                                        mantissa_bits=23)
-    return x64.astype(jnp.float32).astype(jnp.float64)
+    return jax.lax.reduce_precision(x64, exponent_bits=8, mantissa_bits=23)
 
 
 def _f64(x):
@@ -106,11 +96,10 @@ def dequantize(q, low, high, pixels, u=None):
     (ref go/group.go:299-310): ``out = dx*f32(q+u) + low``.
 
     With ``u=None`` (mode "none") this is bit-identical to the host
-    reader.  Dithered modes compute ``q+u`` in float32 (TPU f64 is not
-    reliably available): for q < 2^24 (every realistic config, the
-    dequantize24 fast path) that equals the host's single f64 rounding
-    bit-for-bit; above it only the decoded-value contract
-    ``|x-x_hat|<=dx`` is promised.  The uniform dither STREAM itself is
+    reader.  Dithered modes compute ``q+u`` in float32: for q < 2^24
+    (every realistic config, the dequantize24 fast path) that equals the
+    host's single f64 rounding bit-for-bit; above it only the
+    decoded-value contract ``|x-x_hat|<=dx`` is promised.  The uniform dither STREAM itself is
     one defined sequence shared bitwise by host and device
     (core/dither.py)."""
     dx = _dx64(low, high, pixels)
@@ -129,10 +118,10 @@ def dequantize24(q, low, high, pixels, u=None):
     """All-native-f32 dequantize for ``pixels <= 2^24`` (every realistic
     config): with q < 2^24, ``f32(q)`` is exact, so the only rounding
     hazard left is FMA contraction of ``dx*v + low`` -- blocked by the
-    runtime-opaque select below.  No f64 emulation on the per-element
-    path.  Caller guarantees the pixel bound (host check); bitwise
-    equality with spec.dequantize is enforced by ops/validate.py on
-    every backend."""
+    runtime-opaque select below.  No f64 on the per-element path.
+    Caller guarantees the pixel bound (host check); bitwise equality
+    with spec.dequantize is enforced by ops/validate.py on every
+    backend."""
     low32 = jnp.asarray(low, jnp.float32)
     dx = _dx64(low32, jnp.asarray(high, jnp.float32),
                pixels).astype(jnp.float32)  # per block, tiny
@@ -248,63 +237,12 @@ def _finish_float_blocks(q, pixels, n, periodic, mask, clamp_q: bool):
     return deltas, mn, maxd, valid
 
 
-@partial(jax.jit, static_argnames=("return_q",))
-def float_block_stats32(x, low, pixels, n, periodic, b, eb, m0, m1,
-                        return_q: bool = False):
-    """Stats-only float encode prep: one fused HBM read of ``x``, no
-    delta materialization.  Returns ``(mn, maxd, m, valid)`` where
-    ``m`` is the periodic recenter offset a pack pass must apply --
-    the big-block two-dispatch encode's first dispatch (the fused
-    Pallas kernel caps block length at 512k; above it, stats here +
-    ops/pallas_encode.pack_float_pallas_group).  The recentered min/max
-    derive from the one-pass window reduction exactly as in the fused
-    kernels (small window -> [m, m+w); else plain min/max).
-
-    ``return_q=True`` appends the materialized int32 pixel indices (one
-    extra 4 B/elem HBM write): the round-5 q-reuse big-block encode
-    packs q directly instead of re-quantizing in the pack kernel, so
-    the ~50-op quantizer runs ONCE per element instead of twice."""
-    from . import fastdiv
-
-    width = x.shape[1]
-    mask = _mask(n, width)
-    diff = x.astype(jnp.float32) - low[:, None]
-    # slim_gate: this pass certifies blocks for the SLIM stateless pack
-    # kernel (pallas_encode._pack_kernel_group), so it must flag every
-    # input that kernel's quantizer declines to handle
-    q, exact = fastdiv.quantize_fast(diff, b[:, None], eb[:, None],
-                                     m0[:, None], m1[:, None],
-                                     out32=True, slim_gate=True)
-    all_exact = jnp.where(mask, exact, True).all(axis=1)
-    p32 = pixels.astype(jnp.int32)
-    p = p32[:, None]
-    in_range = jnp.where(mask, (q >= 0) & (q < p), True).all(axis=1)
-    x0 = q[:, :1]
-    y = periodic_distance(q, x0, p)
-    ymin = _masked_min(y, mask)
-    ymax = _masked_max(y, mask)
-    w = ymax - ymin + 1
-    m = x0[:, 0] + ymin
-    m = jnp.where(m < 0, m + p32, m)
-    small = w <= p32 // 2
-    m = jnp.where(small, m, 0)
-    qmin = _masked_min(q, mask)
-    qmax = _masked_max(q, mask)
-    shifted = periodic & small
-    mn = jnp.where(shifted, m, qmin)
-    mx = jnp.where(shifted, m + w - 1, qmax)
-    valid = (in_range | ~periodic) & all_exact
-    if return_q:
-        return mn, mx - mn, jnp.where(periodic, m, 0), valid, q
-    return mn, mx - mn, jnp.where(periodic, m, 0), valid
-
-
 @partial(jax.jit, static_argnames=("clamp_q",))
 def prepare_float_blocks_fast32(x, low, pixels, n, periodic,
                                 b, eb, m0, m1, clamp_q: bool = False):
     """All-native-width encode prep for pixel counts < 2^29: int32
-    pixels, uint32 deltas -- no emulated 64-bit arithmetic anywhere, half
-    the HBM traffic of the 64-bit path.  Same certification semantics as
+    pixels, uint32 deltas -- half the memory traffic of the 64-bit
+    path.  Same certification semantics as
     :func:`prepare_float_blocks_fast`."""
     from . import fastdiv
 
@@ -323,8 +261,9 @@ def prepare_float_blocks_fast32(x, low, pixels, n, periodic,
 def prepare_float_blocks_fast(x, low, pixels, n, periodic,
                               b, eb, m0, m1, clamp_q: bool = False):
     """Integer-exact encode prep (ops/fastdiv.py): same results as
-    :func:`prepare_float_blocks` at VPU speed.  ``b/eb/m0/m1`` are the
-    per-block divisor decomposition from ``fastdiv.divisor_magic`` (host).
+    :func:`prepare_float_blocks` in integer arithmetic.  ``b/eb/m0/m1``
+    are the per-block divisor decomposition from
+    ``fastdiv.divisor_magic`` (host).
     ``valid`` additionally goes False for blocks the fast quotient path
     cannot certify (the caller re-encodes those on host)."""
     from . import fastdiv
@@ -366,28 +305,6 @@ def decode_int_blocks(words, mins, bits: int, n: int):
     return deltas.astype(jnp.int64) + mins[:, None]
 
 
-@partial(jax.jit, static_argnames=("bits", "n", "interpret"))
-def decode_int_blocks_group(words2d, mins, bits: int, n: int,
-                            interpret: bool = False):
-    """Int-block decode through the group-aligned Pallas unpack:
-    <=32-bit widths via the u32 kernel, 33-64-bit via the (lo, hi)
-    halves kernel with the int64 combine fused here (Mosaic has no
-    int64 vectors).  Bit-identical to :func:`decode_int_blocks`;
-    ``words2d`` is the aligned (B*t/G, G*bits) view."""
-    from . import pallas_codec
-
-    b = mins.shape[0]
-    if bits <= 32:
-        vals = pallas_codec.unpack_pallas_group(
-            words2d, bits, n, interpret=interpret)
-        return vals.reshape(b, n).astype(jnp.int64) + mins[:, None]
-    lo, hi = pallas_codec.unpack_pallas_group64(
-        words2d, bits, n, interpret=interpret)
-    d = lo.reshape(b, n).astype(jnp.uint64) \
-        | (hi.reshape(b, n).astype(jnp.uint64) << jnp.uint64(32))
-    return d.astype(jnp.int64) + mins[:, None]
-
-
 def dither_keys(block_ids, seed):
     """Per-block device-dither keys: full jax-threefry ``fold_in`` of
     ``(seed, block_id)`` -- the key schedule itself is cryptographic-
@@ -413,13 +330,10 @@ def dither_hash_u(c, k1, k2):
 
     Defined as the lowbias32 avalanche hash (Wellons' statistically
     tested 2-multiply mixer) of ``(c + k2) ^ k1``, with the standard
-    mantissa-fill float transform.  ~15 vector ops/element -- cheap
-    enough to run fused inside the Pallas decode kernel at near
-    unpack speed, where a full 20-round threefry (~118 ops/elem, the
-    round-2 stream) made the DEFAULT read mode compute-bound at ~1/8th
-    of kernel speed.  Pure u32/f32 ops, bit-identical between the XLA
-    path and the Mosaic kernel; u32*u32 keeps only the exact wrapping
-    low product.  The dither contract is unchanged: deterministic in
+    mantissa-fill float transform.  ~15 integer ops/element, where a
+    full 20-round threefry (~118 ops/elem) would make the DEFAULT read
+    mode compute-bound.  Pure u32/f32 ops; u32*u32 keeps only the exact
+    wrapping low product.  The dither contract is unchanged: deterministic in
     (seed, block_id, element), uniform on the 2^23 grid,
     ``|x - x_hat| <= dx``.  The host reader computes this exact stream
     in pure numpy (core/dither._np_hash_u), so host and device uniform
@@ -463,33 +377,6 @@ def decode_float_blocks32(words, mins, low, high, pixels, periodic,
                         u)
 
 
-@partial(jax.jit, static_argnames=("bits", "n", "n_pad", "interpret"))
-def decode_float_blocks32_group(words2d, mins, low, high, pixels,
-                                periodic, block_ids, bits: int,
-                                n: int, n_pad: int, seed: int = 0,
-                                interpret: bool = False):
-    """Uniform-dither bulk decode with the group-aligned Pallas unpack
-    replacing the XLA unpack, and the dither + dequantize tail in XLA.
-    Superseded in production by the fully fused
-    pallas_codec.decode_float_pallas_group(dither="uniform") -- the
-    counter-hash stream (dither_hash_u) is elementwise in the global
-    index, so it fuses into the kernel; this composite remains as the
-    fallback and cross-check.  Bit-identical to
-    decode_float_blocks32(dither="uniform")."""
-    from . import pallas_codec
-
-    b = mins.shape[0]
-    vals = pallas_codec.unpack_pallas_group(words2d, bits, n_pad,
-                                            interpret=interpret)
-    q = vals.reshape(b, n_pad)[:, :n].astype(jnp.int32) \
-        + mins[:, None].astype(jnp.int32)
-    p32 = pixels[:, None].astype(jnp.int32)
-    q = jnp.where(periodic[:, None], bound(q, 0, p32), q)
-    u = _dither_u(block_ids, n, "uniform", seed)
-    return dequantize24(q, low[:, None], high[:, None], pixels[:, None],
-                        u)
-
-
 @partial(jax.jit, static_argnames=("bits", "n", "dither"))
 def decode_float_blocks(words, mins, low, high, pixels, periodic,
                         block_ids, bits: int, n: int,
@@ -506,3 +393,33 @@ def decode_float_blocks(words, mins, low, high, pixels, periodic,
     q = jnp.where(periodic[:, None], bound(q, 0, p), q)
     u = _dither_u(block_ids, n, dither, seed)
     return dequantize(q, low[:, None], high[:, None], p, u)
+
+
+def padded_rows(m: int) -> int:
+    """Batch rows a width bucket of ``m`` blocks is padded to: the next
+    power of two.  Bucket sizes are data-dependent, and every new batch
+    shape is a new compile; padding bounds the compiles per width to
+    log2 of the largest bucket."""
+    return 1 << max(int(m) - 1, 0).bit_length()
+
+
+def decode_float_bucket(words, mins, low, high, pixels, periodic,
+                        block_ids, bits: int, n: int, dither: str = "none",
+                        seed: int = 0):
+    """Decode one (width, length) bucket of float blocks (host arrays,
+    one row per block) by the narrowest exact route:
+    :func:`decode_float_blocks32` when every bound fits 32 bits
+    (``bits <= 32``, ``pixels <= 2^24``, ``|min| < 2^30`` -- every
+    realistic config), else :func:`decode_float_blocks`.  Rows are
+    padded to :func:`padded_rows` by repeating the last block.  Both
+    routes are bit-identical to the host reader; returns (B, n)
+    float32 on the host."""
+    m = len(mins)
+    fast = (bits <= 32 and int(np.max(pixels)) <= (1 << 24)
+            and int(np.max(np.abs(mins))) < (1 << 30))
+    decode = decode_float_blocks32 if fast else decode_float_blocks
+    pad = np.minimum(np.arange(padded_rows(m)), m - 1)
+    out = decode(*(np.asarray(a)[pad] for a in (
+        words, mins, low, high, pixels, periodic, block_ids)),
+        int(bits), int(n), dither=dither, seed=seed)
+    return np.asarray(out)[:m]

@@ -1,9 +1,8 @@
 """Exact float32 quantization via integer arithmetic.
 
 ``q = floor(RN32((x - low) / dx))`` must be bit-exact (core/spec.py), but
-XLA's f32 division is approximate and the f64-emulation path costs
-~100x on TPU (measured ~0.13 GB/s).  This module computes the correctly
-rounded f32 quotient with pure integer ops at VPU speed:
+XLA's f32 division is approximate.  This module computes the correctly
+rounded f32 quotient with pure integer ops, no f64 anywhere:
 
 * decompose ``diff = a * 2^ea`` and the per-block divisor
   ``dx = b * 2^eb`` into 24-bit mantissas (subnormal ``diff`` handled by
@@ -62,22 +61,14 @@ def divisor_magic(dx):
     return (b, eb.astype(np.int64), m0, m1, ok)
 
 
-def quantize_fast(diff, b, eb, m0, m1, out32: bool = False,
-                  slim_gate: bool = False):
+def quantize_fast(diff, b, eb, m0, m1, out32: bool = False):
     """``floor(RN32(diff / dx))`` for f32 ``diff`` (any shape) and
     per-block divisor decomposition broadcast against it.
 
     Returns ``(q, exact)``; where ``exact`` is False the value is
     unspecified and the caller must use the normative fallback.  With
     ``out32`` the result is int32 and quotients with |q| >= 2^30 are
-    flagged -- the all-native-width path for pixel counts < 2^31.
-
-    ``slim_gate`` additionally flags every input the SLIM in-kernel
-    quantizer (ops/pallas_encode._quantize_limb(slim=True)) declines to
-    handle -- subnormal or negative diffs, quotients >= 2^24 -- while
-    still computing the full values here.  A stats pass that certifies
-    blocks for the slim stateless pack kernel must use this gate: its
-    flag set has to be a superset of the kernel's."""
+    flagged -- the all-native-width path for pixel counts < 2^31."""
     bits = jax.lax.bitcast_convert_type(diff, jnp.uint32)
     sign = bits >> np.uint32(31)
     e_raw = ((bits >> np.uint32(23)) & np.uint32(0xFF)).astype(jnp.int64)
@@ -123,9 +114,6 @@ def quantize_fast(diff, b, eb, m0, m1, out32: bool = False,
     e_z = e_z + ovf.astype(jnp.int64)
 
     invalid = invalid | (e_z >= (30 if out32 else 62)) | (e_z < -120)
-    if slim_gate:
-        invalid = invalid | (e_raw == 0) | (sign != np.uint32(0)) \
-            | (e_z >= 24)
 
     # floor(+-M * 2^(E-23))
     up_sh = jnp.clip(e_z - 23, 0, 63).astype(jnp.uint64)
@@ -140,8 +128,8 @@ def quantize_fast(diff, b, eb, m0, m1, out32: bool = False,
     q_val = jnp.where(is_zero, 0, q_val)
     # +0 diffs are exact by definition (quotient 0); their mantissa
     # path computes garbage exponents that must not flag them.  -0.0 is
-    # FLAGGED: on flush-to-zero backends (TPU XLA flushes subnormals in
-    # the upstream f32 subtract) a -0.0 diff may stand for a true
+    # FLAGGED: on a backend that flushes subnormals in the upstream f32
+    # subtract, a -0.0 diff may stand for a true
     # negative-subnormal difference whose spec quotient floors to -1,
     # so it must route to the host fallback, where numpy recomputes the
     # unflushed diff.  (A genuine -0.0 diff also floors to 0 there, so

@@ -2,16 +2,18 @@
 
 The on-disk format is defined by IEEE float32 arithmetic (core/spec.py);
 this module proves, at runtime on the *actual* backend, that the device
-codec reproduces it bitwise.  Run by bench.py on the real chip and by the
-test suite on the CPU mesh; any mismatch is a hard failure of the
-byte-exactness contract, not a tolerance issue.
+codec reproduces it bitwise.  Run by chip_smoke.py and bench.py on the
+GPU and by the test suite on the CPU mesh; any mismatch is a hard failure
+of the byte-exactness contract, not a tolerance issue.
 
 Found and guarded so far:
 
 * XLA f32 division is reciprocal-approximated (2 ulp): codec divides in
-  f64 and casts back (exact by Figueroa's double-rounding theorem).
+  f64 and rounds back with ``_rp32`` (exact by Figueroa's double-rounding
+  theorem), and the encode prep divides in integer limbs (fastdiv).
 * FMA contraction of ``dx*v + low`` would merge two roundings into one:
-  codec puts an optimization barrier after the multiply.
+  codec pins the product with ``_rp32`` (f64 route) or a runtime-opaque
+  select (dequantize24).
 """
 
 from __future__ import annotations
@@ -169,226 +171,72 @@ def validate_pack(seed: int = 2) -> None:
             raise AssertionError("device unpack diverges at bits=%d" % bits)
 
 
-def validate_pallas_encode(seed: int = 4, interpret: bool = False) -> None:
-    """Fused Pallas encode kernel (ops/pallas_encode.py) == host spec,
-    byte for byte, on the actual backend (the production BlockEncoder
-    auto-selects this kernel on TPU).  Covers a periodic wrap cluster
-    and verifies the stats the fallback logic keys on."""
-    from . import bitpack, fastdiv, pallas_encode
+def validate_blocks(seed: int = 4) -> None:
+    """The batched routes the writers and bulk readers run == host spec,
+    byte for byte: BlockEncoder's float encode prep (fastdiv limbs,
+    int32 deltas) + width-specialized pack, and the bulk decode
+    (``decode_float_blocks32``: int32 unpack + ``dequantize24``) in
+    dither modes ``none`` and ``uniform`` against the host reader's
+    stream.  Covers a periodic wrap cluster and a ragged block."""
+    from ..core import dither
+    from . import bitpack, fastdiv
 
     rng = np.random.default_rng(seed)
     low, high, dx = 0.0, 250.0, 0.001
     pixels = spec.float_group_pixels(low, high, dx)
-    bits, bsz, n = 18, 4, 4096
+    bsz, n = 4, 4096
     x = rng.uniform(0, 249.9, (bsz, n)).astype(np.float32)
-    wrap = np.concatenate([rng.uniform(0, 3, n // 2),
+    x[2] = np.concatenate([rng.uniform(0, 3, n // 2),
                            250.0 - rng.uniform(0, 3, n - n // 2)])
-    x[2] = wrap.astype(np.float32)
+    lens = np.array([n, n, n, n - 77], np.int64)
     lowv = np.full(bsz, low, np.float32)
+    highv = np.full(bsz, high, np.float32)
     pixv = np.full(bsz, pixels, np.int64)
     per = np.ones(bsz, bool)
     dxq = np.full(bsz, spec.quantize_dx(low, high, pixels), np.float32)
     db, deb, dm0, dm1, dok = fastdiv.divisor_magic(dxq)
     assert dok.all()
-    words, mins, maxd, valid = (np.asarray(a) for a in
-                                pallas_encode.encode_float_pallas(
-        x, lowv, db, deb, dm0, dm1, pixv, per, bits, n,
-        interpret=interpret))
-    if not valid.all():
-        raise AssertionError("pallas encode failed to certify "
+    deltas, mins, maxd, valid = codec.prepare_float_blocks_fast32(
+        x, lowv, pixv, lens, per, db, deb, dm0, dm1)
+    if not np.asarray(valid).all():
+        raise AssertionError("fast encode prep failed to certify "
                              "in-range blocks")
+    mins, maxd = np.asarray(mins), np.asarray(maxd)
+    block_ids = np.arange(bsz, dtype=np.int64) + 7
     for i in range(bsz):
-        payload, mn, bts, _ = spec.encode_float_block(x[i], low, high,
+        m = int(lens[i])
+        payload, mn, bts, q = spec.encode_float_block(x[i, :m], low, high,
                                                       pixels)
-        if mins[i] != mn or spec.precision_needed(int(maxd[i])) != bts:
-            raise AssertionError(
-                "pallas encode stats diverge at block %d "
-                "(min %d want %d, bits %d want %d)"
-                % (i, mins[i], mn,
-                   spec.precision_needed(int(maxd[i])), bts))
-        if bts == bits and \
-                bitpack.words_to_bytes(words[i], bits, n) != payload:
-            raise AssertionError(
-                "pallas encode payload diverges from spec at block %d"
-                % i)
+        if int(mins[i]) != mn or spec.precision_needed(int(maxd[i])) != bts:
+            raise AssertionError("encode prep stats diverge from spec at "
+                                 "block %d" % i)
+        words = bitpack.pack_batch(deltas[i:i + 1], bts)
+        if bitpack.words_to_bytes(words[0], bts, m) != payload:
+            raise AssertionError("encode payload diverges from spec at "
+                                 "block %d" % i)
+        w = bitpack.bytes_to_words(payload, bts, m)[None]
+        q = spec.bound(q, 0, pixels)
+        for mode in ("none", "uniform"):
+            got = np.asarray(codec.decode_float_blocks32(
+                w, np.array([mn]), lowv[:1], highv[:1], pixv[:1], per[:1],
+                block_ids[i:i + 1], bts, m, dither=mode, seed=3))[0]
+            want = spec.dequantize(
+                q, low, high, pixels,
+                u=dither.dither_u(mode, 3, int(block_ids[i]), m))
+            if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+                raise AssertionError(
+                    "bulk decode (dither=%s) diverges from the host "
+                    "reader at block %d" % (mode, i))
 
 
-def validate_pallas_group(seed: int = 5, interpret: bool = False) -> None:
-    """Group-aligned Pallas kernels (ops/pallas_codec.py *_group,
-    ops/pallas_encode.encode_float_pallas_group) == host spec / XLA
-    decode, byte for byte, on the actual backend.  These are the
-    production TPU fast paths for bulk decode and streamed encode."""
-    from . import bitpack, codec, fastdiv, pallas_codec, pallas_encode
-
-    rng = np.random.default_rng(seed)
-
-    # unpack: one width per structural class the kernel compiles
-    # differently -- _tile_step(bits) in {1, 2, 4, 8} x group size G
-    # (even widths always group at G=64, odd at 128) -- plus the 1/32
-    # edges (production engages DATA-determined widths, so each class
-    # must be gated, not just the flagship width; one per class keeps
-    # the remote-compile budget bounded)
-    for bits in (18, 13, 1, 32, 12):
-        g = pallas_codec.group_tiles(bits)
-        n = 32 * g * 8
-        vals = rng.integers(0, 1 << bits, (3, n), dtype=np.uint64)
-        words = np.stack([
-            bitpack.bytes_to_words(spec.pack_bits(v, bits), bits, n)
-            for v in vals])
-        got = np.asarray(pallas_codec.unpack_pallas_group(
-            words.reshape(-1, g * bits), bits, n, interpret=interpret))
-        if not np.array_equal(got.reshape(3, n).astype(np.uint64), vals):
-            raise AssertionError("group unpack diverges at bits=%d"
-                                 % bits)
-
-    # wide (33-64-bit) unpack + the fused int64 combine (ID columns):
-    # same one-per-class coverage -- ts 8/4/2/1 over the reachable G
-    for bits in (41, 64, 34, 36):
-        g = pallas_codec.group_tiles(bits)
-        n = 32 * g * 8
-        hi_excl = (1 << bits) - 1 if bits == 64 else (1 << bits)
-        vals = rng.integers(0, hi_excl, (2, n), dtype=np.uint64)
-        words = np.stack([
-            bitpack.bytes_to_words(spec.pack_bits(v, bits), bits, n)
-            for v in vals])
-        mins = rng.integers(-100, 100, 2).astype(np.int64)
-        ref = np.asarray(codec.decode_int_blocks(
-            words, mins, bits, n))
-        got = np.asarray(codec.decode_int_blocks_group(
-            words.reshape(-1, g * bits), mins, bits, n,
-            interpret=interpret))
-        if not np.array_equal(ref, got):
-            raise AssertionError("group int decode diverges at bits=%d"
-                                 % bits)
-
-    # fused decode vs the XLA decode, bitwise -- both kernel paths:
-    # t_g=8 engages the multi-block-per-instance variant (kpb=4 here),
-    # t_g=128 the per-block variant.  bits=11 adds a NON-flagship width
-    # class (different _tile_step => a separately compiled Mosaic
-    # program) to the on-chip gate: production widths are data-
-    # determined, and width-specific Mosaic miscompiles have been
-    # observed on real silicon (ADVICE r3 validate.py:310).
-    for bits, t_g, bsz in ((18, 8, 4), (18, 128, 2), (11, 8, 4)):
-        g = pallas_codec.group_tiles(bits)
-        pixels = 250000 if bits == 18 else 2000
-        n = 32 * g * t_g
-        vals = rng.integers(0, pixels, (bsz, n), dtype=np.uint64)
-        words = np.stack([
-            bitpack.bytes_to_words(spec.pack_bits(v, bits), bits, n)
-            for v in vals])
-        mins = rng.integers(-3, 3, bsz).astype(np.int64)
-        low = rng.uniform(-10, 0, bsz).astype(np.float32)
-        high = (low + rng.uniform(100, 300, bsz)).astype(np.float32)
-        pix = np.full(bsz, pixels, np.int64)
-        per = np.arange(bsz) != 1  # mixed periodic in BOTH size cases
-        ref = np.asarray(codec.decode_float_blocks32(
-            words, mins, low, high, pix, per, np.arange(bsz), bits, n,
-            dither="none"))
-        got = np.asarray(pallas_codec.decode_float_pallas_group(
-            words.reshape(-1, g * bits), mins, low, high, pix, per,
-            bits, n, dither="none", interpret=interpret))
-        if not np.array_equal(ref.view(np.uint32),
-                              got.reshape(bsz, n).view(np.uint32)):
-            raise AssertionError("group fused decode diverges from XLA "
-                                 "decode at t_g=%d" % t_g)
-
-        # uniform dither (the production DEFAULT read mode): both the
-        # composite (kernel unpack + XLA dither tail) and the fully
-        # fused in-kernel counter-hash path vs the all-XLA path,
-        # bitwise -- incl. the pad-and-slice at a ragged n
-        n_true = n - 7
-        ref_u = np.asarray(codec.decode_float_blocks32(
-            words[:, :max(bitpack.words_per_block(bits, n_true), 1)],
-            mins, low, high, pix, per, np.arange(bsz), bits, n_true,
-            dither="uniform", seed=3))
-        got_u = np.asarray(codec.decode_float_blocks32_group(
-            words.reshape(-1, g * bits), mins, low, high, pix, per,
-            np.arange(bsz), bits, n_true, n, seed=3,
-            interpret=interpret))
-        if not np.array_equal(ref_u.view(np.uint32),
-                              got_u.view(np.uint32)):
-            raise AssertionError("group uniform decode diverges from "
-                                 "XLA decode at t_g=%d" % t_g)
-        k1, k2 = codec.dither_keys(np.arange(bsz, dtype=np.int64), 3)
-        fused_u = np.asarray(pallas_codec.decode_float_pallas_group(
-            words.reshape(-1, g * bits), mins, low, high, pix, per,
-            bits, n, dither="uniform", interpret=interpret,
-            key1=np.asarray(k1), key2=np.asarray(k2)))
-        fused_u = fused_u.reshape(bsz, n)[:, :n_true]
-        if not np.array_equal(ref_u.view(np.uint32),
-                              fused_u.view(np.uint32)):
-            raise AssertionError("fused uniform decode diverges from "
-                                 "XLA decode at t_g=%d" % t_g)
-    bits = 18  # encode check runs at the flagship width
-    g = pallas_codec.group_tiles(bits)
-    n, bsz = 32 * g * 8, 4
-
-    # fused group encode vs host spec bytes
-    lowf, highf, dx = 0.0, 250.0, 0.001
-    pixels = spec.float_group_pixels(lowf, highf, dx)
-    x = rng.uniform(0, 249.9, (bsz, n)).astype(np.float32)
-    wrap = np.concatenate([rng.uniform(0, 3, n // 2),
-                           250.0 - rng.uniform(0, 3, n - n // 2)])
-    x[2] = wrap.astype(np.float32)
-    lowv = np.full(bsz, lowf, np.float32)
-    pixv = np.full(bsz, pixels, np.int64)
-    perv = np.ones(bsz, bool)
-    dxq = np.full(bsz, spec.quantize_dx(lowf, highf, pixels),
-                  np.float32)
-    db, deb, dm0, dm1, dok = fastdiv.divisor_magic(dxq)
-    assert dok.all()
-    words, mn_, maxd, valid = (np.asarray(a) for a in
-                               pallas_encode.encode_float_pallas_group(
-        x.reshape(-1, g * 32), lowv, db, deb, dm0, dm1, pixv, perv,
-        bits, n, interpret=interpret))
-    # explicit rows disables block merging: the kpb=1 kernel path must
-    # produce the same words
-    w1, mn1, _, _ = (np.asarray(a) for a in
-                     pallas_encode.encode_float_pallas_group(
-        x.reshape(-1, g * 32), lowv, db, deb, dm0, dm1, pixv, perv,
-        bits, n, interpret=interpret, rows=8))
-    if not (np.array_equal(w1, words) and np.array_equal(mn1, mn_)):
-        raise AssertionError("group encode kpb=1 and merged paths "
-                             "disagree")
-
-    # column-constant specialization: identical output words/stats
-    # (this on-chip pass is what lets production enable const_cfg)
-    cfg = pallas_encode.make_const_cfg(lowf, db, deb, dm0, dm1,
-                                       pixels, True)
-    wc, mnc, maxdc, vc = (np.asarray(a) for a in
-                          pallas_encode.encode_float_pallas_group(
-        x.reshape(-1, g * 32), lowv, db, deb, dm0, dm1, pixv, perv,
-        bits, n, interpret=interpret, const_cfg=cfg))
-    if not (np.array_equal(wc, words) and np.array_equal(mnc, mn_)
-            and np.array_equal(maxdc, maxd)
-            and np.array_equal(vc, valid)):
-        raise AssertionError("const-specialized group encode diverges "
-                             "from the generic kernel")
-
-    # the big-block two-dispatch encode (XLA stats + stateless pack
-    # kernel) must produce the same words and stats as the fused kernel
-    wb, mnb, maxdb, vb = (np.asarray(a) for a in
-                          pallas_encode.encode_float_pallas_bigblock(
-        x.reshape(-1, g * 32), lowv, db, deb, dm0, dm1, pixv, perv,
-        bits, n, interpret=interpret))
-    if not (np.array_equal(wb, words) and np.array_equal(mnb, mn_)
-            and np.array_equal(maxdb, maxd) and vb.all()):
-        raise AssertionError("big-block two-dispatch encode diverges "
-                             "from the fused kernel")
-    if not valid.all():
-        raise AssertionError("group encode failed to certify in-range "
-                             "blocks")
-    words = words.reshape(bsz, (n // 32) * bits)
-    for i in range(bsz):
-        payload, mn, bts, _ = spec.encode_float_block(x[i], lowf, highf,
-                                                      pixels)
-        if mn_[i] != mn or spec.precision_needed(int(maxd[i])) != bts:
-            raise AssertionError("group encode stats diverge at block "
-                                 "%d" % i)
-        if bts == bits and \
-                bitpack.words_to_bytes(words[i], bits, n) != payload:
-            raise AssertionError("group encode payload diverges from "
-                                 "spec at block %d" % i)
+# Which arithmetic route each check gates: the production encode prep
+# quantizes through fastdiv limbs and the bulk readers dequantize through
+# dequantize24; the f64 + _rp32 routes serve the generic (wide-pixel)
+# paths and the single-block API.
+ROUTES = {
+    "quantize": ("f64+_rp32", "fastdiv limbs"),
+    "dequantize": ("f64+_rp32", "dequantize24"),
+}
 
 
 def validate_backend() -> dict:
@@ -400,24 +248,11 @@ def validate_backend() -> dict:
     validate_quantize_fast()
     validate_dequantize()
     validate_pack()
-    report = {
-        "backend": jax.default_backend(),
-        "device": str(jax.devices()[0]),
+    validate_blocks()
+    dev = jax.devices()[0]
+    return {
+        "backend": dev.platform,
+        "device_kind": dev.device_kind,
         "exact": True,
+        "routes": ROUTES,
     }
-    if report["backend"] == "tpu":
-        # gate the fused kernels the production paths auto-select on
-        # this backend (CPU runs cover them in interpret mode via the
-        # test suite).  A kernel-path failure does NOT raise: it is
-        # recorded so the caller can disable that path (env kill
-        # switches MINNOW_TPU_PALLAS_ENCODE/DECODE=0) and proceed with
-        # the XLA paths -- ``exact`` covers the core (XLA/host) codec
-        # only.  bench.py reacts accordingly.
-        for name, fn in (("pallas_encode", validate_pallas_encode),
-                         ("pallas_group", validate_pallas_group)):
-            try:
-                fn()
-                report[name] = True
-            except Exception as e:  # noqa: BLE001 - recorded, path disabled
-                report[name] = "FAILED: %s" % str(e)[:300]
-    return report

@@ -2,7 +2,7 @@
 //
 // The reference ships a Go bit kernel (ref go/bit/bit.go) and a Cython twin
 // (ref python/cy_bit.pyx); this C++ engine is their counterpart for the
-// host side of the TPU framework: fast fixed-width bit pack/unpack, the
+// host side of the framework: fast fixed-width bit pack/unpack, the
 // exact greedy periodic-window scan (normative for out-of-range inputs),
 // float32 quantization, and the multithreaded text-catalog field parser
 // (ref go/text/parse.go + go/thread/thread.go).

@@ -181,42 +181,3 @@ def test_verify_never_crashes_on_corruption(tmp_path, seed):
 
     problems = verify_minnow.verify(bad, deep=True)  # must not raise
     assert isinstance(problems, list)
-
-
-def _soak_mod():
-    """The generative kernel-fuzz generators are shared with
-    tools/r3_kernel_fuzz_soak.py (the extended soak drives the SAME
-    input space with more seeds -- one generator, no drift)."""
-    import importlib.util
-    import os as _os
-
-    global _SOAK
-    if _SOAK is None:
-        path = _os.path.join(_os.path.dirname(_os.path.dirname(
-            _os.path.abspath(__file__))), "tools",
-            "r3_kernel_fuzz_soak.py")
-        spec_ = importlib.util.spec_from_file_location("r3_soak", path)
-        _SOAK = importlib.util.module_from_spec(spec_)
-        spec_.loader.exec_module(_SOAK)
-    return _SOAK
-
-
-_SOAK = None
-
-
-@pytest.mark.parametrize("seed", range(8))
-def test_int_pack_kernel_fuzz(seed):
-    """Generative fuzz of the int pack kernel (interpret): random
-    width, random alignment-padded length, random delta magnitudes and
-    masked tails -- bytes must equal spec.pack_bits exactly
-    (generator shared with the extended soak)."""
-    _soak_mod().one_int_pack(np.random.default_rng(1000 + seed))
-
-
-@pytest.mark.parametrize("seed", range(6))
-def test_fused_uniform_decode_fuzz(seed):
-    """Generative fuzz of the fused uniform decode (interpret): random
-    width <= 24, random t_g (crossing the kpb-merge boundary), random
-    quantization configs -- bitwise equal to the XLA path (generator
-    shared with the extended soak)."""
-    _soak_mod().one_uniform(np.random.default_rng(2000 + seed))

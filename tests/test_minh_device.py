@@ -94,85 +94,6 @@ def test_philox_legacy_mode_reproduces_old_stream(tmp_path):
     r_p.close(), r_u.close(), r_p2.close()
 
 
-def test_device_group_path_interpret(tmp_path, monkeypatch):
-    """The group-aligned Pallas bulk-decode path (padded to kernel
-    alignment) equals the host reader bit-for-bit (interpret mode; the
-    real-kernel identity is gated on-chip by validate_pallas_group)."""
-    fname = str(tmp_path / "c.minh")
-    rng = np.random.default_rng(3)
-    # unaligned (pads to 32768) but within the <=25% padding-waste gate
-    n = 30000
-    w = minh.create(fname)
-    w.header(["x"], "t", [minh.Column(type=minh.Float, low=0, high=250,
-                                      dx=0.001)])
-    w.geometry(250, 0, 0)
-    x = rng.uniform(0, 249.9, n).astype(np.float32)
-    x[0], x[1] = 0.0, 249.9  # pin the delta range -> 18-bit block
-    w.block([x])
-    w.close()
-
-    from minnow_tpu.formats import device_common
-
-    r = minh.open(fname, dither="none")
-    host = r.floats(["x"])["x"]
-    used = []
-    orig = device_common.group_decode
-
-    def spy(*a, **k):
-        out = orig(*a, **k)
-        used.append(out is not None)
-        return out
-
-    monkeypatch.setattr(minh_device, "_group_decode", spy)
-    monkeypatch.setattr(device_common, "INTERPRET", True)
-    dev = minh_device.read_floats(r, ["x"], dither="none")["x"]
-    r.close()
-    assert any(used), "group decode path did not engage"
-    np.testing.assert_array_equal(dev.view(np.uint32),
-                                  host.view(np.uint32))
-
-
-@pytest.mark.parametrize("n", [32768, 30000])
-def test_device_group_int_path_interpret(tmp_path, monkeypatch, n):
-    """Bulk int reads engage the group unpack kernels -- wide (ID
-    columns, 33-64-bit deltas) and narrow -- and equal the host reader
-    exactly (interpret mode).  n=30000 exercises the pad-to-alignment
-    branch (words padded to 32768 elements, the tail sliced off)."""
-    from minnow_tpu.formats import device_common
-
-    fname = str(tmp_path / "c.minh")
-    rng = np.random.default_rng(4)
-    # n=32768: odd widths group at G=128 -> exact 32768 alignment
-    w = minh.create(fname)
-    w.header(["id", "flag"], "t", [minh.Column(type=minh.Int),
-                                   minh.Column(type=minh.Int)])
-    w.geometry(250, 0, 0)
-    ids = rng.integers(0, 10**12, n)  # ~40-bit deltas
-    ids[0], ids[1] = 0, (1 << 40) + 5  # pin width > 32
-    flags = rng.integers(0, 2, n)     # 1-bit deltas
-    w.block([ids, flags])
-    w.close()
-
-    r = minh.open(fname)
-    host = r.ints(["id", "flag"])
-    used = []
-    orig = device_common.group_decode_ints
-
-    def spy(*a, **k):
-        out = orig(*a, **k)
-        used.append(out is not None)
-        return out
-
-    monkeypatch.setattr(minh_device.device_common, "group_decode_ints",
-                        spy)
-    monkeypatch.setattr(device_common, "INTERPRET", True)
-    dev = minh_device.read_ints(r, ["id", "flag"])
-    r.close()
-    assert used and all(used), "group int decode did not engage"
-    np.testing.assert_array_equal(dev["id"], host["id"])
-    np.testing.assert_array_equal(dev["flag"], host["flag"])
-
-
 def test_verify_minnow_cli(tmp_path, capsys):
     import pytest
 
@@ -201,41 +122,3 @@ def test_verify_minnow_cli(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "ok" in out and "INVALID" in out
 
-
-def test_device_group_uniform_dither_interpret(tmp_path, monkeypatch):
-    """Uniform-dither bulk reads (the default read mode) engage the
-    kernel-unpack + XLA-threefry-tail path and are bit-identical to the
-    all-XLA device path (the device dither stream's definition)."""
-    from minnow_tpu.formats import device_common
-
-    fname = str(tmp_path / "u.minh")
-    rng = np.random.default_rng(6)
-    n = 16384  # 18-bit floats group at G=64 -> exact 16384 alignment
-    w = minh.create(fname)
-    w.header(["x"], "t", [minh.Column(type=minh.Float, low=0.0,
-                                      high=250.0, dx=0.001)])
-    w.geometry(250, 0, 0)
-    w.block([rng.uniform(0, 249.9, n).astype(np.float32)])
-    w.block([rng.uniform(0, 249.9, n).astype(np.float32)])
-    w.close()
-
-    r = minh.open(fname, dither="uniform")
-    # all-XLA reference via the kill switch
-    monkeypatch.setenv("MINNOW_TPU_PALLAS_DECODE", "0")
-    ref = minh_device.read_floats(r, ["x"], dither="uniform", seed=5)
-    monkeypatch.delenv("MINNOW_TPU_PALLAS_DECODE")
-    used = []
-    orig = device_common.group_decode
-
-    def spy(*a, **k):
-        out = orig(*a, **k)
-        used.append(out is not None)
-        return out
-
-    monkeypatch.setattr(minh_device, "_group_decode", spy)
-    monkeypatch.setattr(device_common, "INTERPRET", True)
-    got = minh_device.read_floats(r, ["x"], dither="uniform", seed=5)
-    r.close()
-    assert used and all(used), "uniform group path did not engage"
-    np.testing.assert_array_equal(got["x"].view(np.uint32),
-                                  ref["x"].view(np.uint32))

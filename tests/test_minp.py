@@ -134,41 +134,6 @@ def test_minp_device_writer_byte_identical(tmp_path):
             periodic
 
 
-def test_minp_device_reader_group_path_interpret(tmp_path, monkeypatch):
-    """The shared group-aligned Pallas bulk-decode engages for big
-    sub-cell blocks (n >= 16384) and equals the host reader exactly
-    (interpret mode; real-kernel identity gated by validate on chip)."""
-    from minnow_tpu.formats import device_common, minp_device
-
-    rng = np.random.default_rng(99)
-    n_side = 32  # one sub-cell of 32768 elements: above the alignment
-    hd = minp.Header(l=100.0, n_side=n_side, n_total=n_side ** 3)
-    vec = rng.uniform(0, 99.9, (n_side ** 3, 3)).astype(np.float32)
-    fname = str(tmp_path / "big.minp")
-    w = minp.create(fname)
-    w.header(hd, b"", minp.Cell(0, 1, 1), 0.01, True)
-    w.vectors(vec)
-    w.close()
-
-    used = []
-    orig = device_common.group_decode
-
-    def spy(*a, **k):
-        out = orig(*a, **k)
-        used.append(out is not None)
-        return out
-
-    monkeypatch.setattr(minp_device.device_common, "group_decode", spy)
-    monkeypatch.setattr(device_common, "INTERPRET", True)
-    r = minp.open(fname, dither="none")
-    host = r.vectors()
-    dev = minp_device.read_vectors(r, dither="none")
-    r.close()
-    assert any(used), "group decode path did not engage"
-    np.testing.assert_array_equal(dev.view(np.uint32),
-                                  host.view(np.uint32))
-
-
 def test_minp_device_reader_matches_host(tmp_path):
     from minnow_tpu.formats import minp_device
 

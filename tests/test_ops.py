@@ -1,7 +1,7 @@
 """Device ops (minnow_tpu.ops) vs the normative host spec, byte-for-byte.
 
 Runs on the CPU backend (tests/conftest.py); the same programs compile for
-TPU unchanged.  Mirrors the reference's bit-kernel property tests
+the GPU unchanged.  Mirrors the reference's bit-kernel property tests
 (ref go/bit/bit_test.go:9-69) plus batched/masked paths the reference
 doesn't have.
 """
@@ -152,54 +152,6 @@ def test_prepare_float_blocks_flags_out_of_range():
     assert not np.asarray(out[3])[0]
 
 
-def test_decode_int_blocks():
-    rng = np.random.default_rng(17)
-    b, n = 3, 50
-    x = rng.integers(-1000, 10**12, size=(b, n), dtype=np.int64)
-    lens = np.full(b, n, np.int64)
-    deltas, mins, maxd = codec.prepare_int_blocks(x, lens)
-    bits = int(np.asarray(codec.bits_needed(maxd)).max())
-    words = bitpack.pack_batch(np.asarray(deltas), bits)
-    got = np.asarray(codec.decode_int_blocks(
-        words, np.asarray(mins), bits, n))
-    np.testing.assert_array_equal(got, x)
-
-
-def test_decode_float_blocks_matches_host_reader():
-    """Device decode with dither='none' must equal the host spec decode
-    bit-for-bit."""
-    rng = np.random.default_rng(19)
-    b, n = 4, 200
-    low = np.full(b, -50.0, np.float32)
-    high = np.full(b, 100.0, np.float32)
-    pixels = np.full(b, spec.float_group_pixels(-50, 100, 0.5), np.int64)
-    x = rng.uniform(-50, 99.9, (b, n)).astype(np.float32)
-    lens = np.full(b, n, np.int64)
-    periodic = np.ones(b, bool)
-
-    deltas, mins, maxd, valid = codec.prepare_float_blocks(
-        x, low, high, pixels, lens, periodic)
-    assert np.asarray(valid).all()
-    bits = int(np.asarray(codec.bits_needed(maxd)).max())
-    words = bitpack.pack_batch(np.asarray(deltas), bits)
-
-    got = np.asarray(codec.decode_float_blocks(
-        words, np.asarray(mins), low, high, pixels, periodic,
-        np.arange(b, dtype=np.int64), bits, n, dither="none"))
-
-    for i in range(b):
-        payload, mn, bbits, _ = spec.encode_float_block(
-            x[i], low[i], high[i], int(pixels[i]), True)
-        dec_q = spec.decode_int_block(
-            bitpack.words_to_bytes(
-                bitpack.pack(np.asarray(deltas)[i], bits), bits, n) if bits
-            else b"", mn, bits, n)
-        dec_q = spec.bound(dec_q, 0, int(pixels[i]))
-        want = spec.dequantize(dec_q, low[i], high[i], int(pixels[i]))
-        np.testing.assert_array_equal(got[i], want)
-        assert np.all(np.abs(got[i] - x[i]) <= 0.5 * (1 + 1e-5))
-
-
 def test_decode_float_blocks_uniform_dither_in_pixel():
     rng = np.random.default_rng(23)
     b, n = 2, 100
@@ -256,3 +208,35 @@ def test_numpy_dither_twins_match_jax_bitwise():
     assert (u >= 0).all() and (u < 1).all()
     # statistically uniform enough for the coarse bench/test bound
     assert abs(float(u.mean()) - 0.5) < 0.02
+
+
+def test_dither_hash_stream_quality():
+    """The counter-hash dither stream: uniform marginals, no visible
+    serial correlation, distinct streams across blocks, determinism."""
+    ids = np.arange(4, dtype=np.int64)
+    k1, k2 = (np.asarray(k) for k in codec.dither_keys(ids, 0))
+    n = 1 << 16
+    c = np.arange(n, dtype=np.uint32)
+    us = np.stack([np.asarray(codec.dither_hash_u(
+        c, np.uint32(k1[b]), np.uint32(k2[b]))) for b in range(4)])
+    assert (us >= 0).all() and (us < 1).all()
+    # uniform marginals: mean 0.5 +- 4 sigma, var 1/12
+    se = 1 / np.sqrt(12 * n)
+    assert np.abs(us.mean(axis=1) - 0.5).max() < 4 * se
+    assert np.abs(us.var(axis=1) - 1 / 12).max() < 0.002
+    # serial correlation ~ 0
+    for b in range(4):
+        x = us[b] - us[b].mean()
+        r1 = (x[:-1] * x[1:]).mean() / x.var()
+        assert abs(r1) < 0.02, r1
+    # blocks decorrelated (not translated copies)
+    for a in range(4):
+        for b in range(a + 1, 4):
+            xa = us[a] - us[a].mean()
+            xb = us[b] - us[b].mean()
+            rab = (xa * xb).mean() / np.sqrt(xa.var() * xb.var())
+            assert abs(rab) < 0.02, (a, b, rab)
+    # deterministic
+    again = np.asarray(codec.dither_hash_u(
+        c, np.uint32(k1[0]), np.uint32(k2[0])))
+    np.testing.assert_array_equal(us[0], again)

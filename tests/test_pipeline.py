@@ -51,31 +51,6 @@ def test_sharded_float_encode_matches_spec(mesh8):
         enc.offsets, np.concatenate([[0], np.cumsum(enc.sizes)[:-1]]))
 
 
-def test_sharded_float_encode_const_specialized(mesh8, monkeypatch):
-    """The column-constant kernel path under shard_map over the mesh:
-    uniform scalars at a group-qualifying shape, byte-identical to the
-    host path (const_cfg is a static closure; each device runs the
-    specialized kernel on its local blocks)."""
-    from minnow_tpu.ops import pallas_codec
-
-    monkeypatch.setenv("MINNOW_TPU_PALLAS_CONST", "1")
-    rng = np.random.default_rng(3)
-    bits = 18
-    g = pallas_codec.group_tiles(bits)
-    b, n = 16, 32 * g * 8
-    low, high, dx = 0.0, 250.0, 0.001
-    pixels = spec.float_group_pixels(low, high, dx)
-    x = rng.uniform(0, 249.9, (b, n)).astype(np.float32)
-
-    want = BlockEncoder(pallas=False).encode_float_blocks(
-        x, low, high, pixels)
-    got = BlockEncoder(mesh8, pallas=True).encode_float_blocks(
-        x, low, high, pixels)
-    assert got.payloads == want.payloads
-    np.testing.assert_array_equal(got.mins, want.mins)
-    np.testing.assert_array_equal(got.bits, want.bits)
-
-
 def test_sharded_int_encode_matches_spec(mesh8):
     rng = np.random.default_rng(1)
     b, n = 16, 128
@@ -147,179 +122,6 @@ def test_pipeline_feeds_container_writer(tmp_path, mesh8):
         got = r.data(i)
         assert np.all(np.abs(got - x[i]) <= dx * (1 + 1e-5))
     r.close()
-
-
-def test_pallas_encode_path_byte_identical():
-    """Production BlockEncoder with the fused Pallas kernel (interpret
-    mode on CPU) produces the same EncodedBlocks as the XLA path,
-    including the fallback classes: a clustered block whose true width
-    is below the predicted one, a short block, and an empty block."""
-    rng = np.random.default_rng(11)
-    n = 512  # multiple of 256 (kernel tile constraint)
-    low, high, dx = 0.0, 250.0, 0.001
-    pixels = spec.float_group_pixels(low, high, dx)
-    x = rng.uniform(0, 249.9, (6, n)).astype(np.float32)
-    x[1] = 100.0 + rng.uniform(0, 0.01, n).astype(np.float32)  # narrow
-    wrap = np.concatenate([rng.uniform(0, 2, n // 2),
-                           250.0 - rng.uniform(0, 2, n - n // 2)])
-    x[2] = wrap.astype(np.float32)  # periodic wrap cluster
-    lens = np.array([n, n, n, n // 4, 0, n], dtype=np.int64)
-
-    want = BlockEncoder(pallas=False).encode_float_blocks(
-        x, low, high, pixels, lens=lens)
-    got = BlockEncoder(pallas=True).encode_float_blocks(
-        x, low, high, pixels, lens=lens)
-    assert got.payloads == want.payloads
-    np.testing.assert_array_equal(got.mins, want.mins)
-    np.testing.assert_array_equal(got.bits, want.bits)
-    assert want.bits[1] < want.bits[0]  # fallback class actually hit
-
-
-def test_pallas_encode_path_sharded_mesh(mesh8):
-    """The fused Pallas encode under shard_map on the 8-device mesh
-    (each device runs the kernel on its local blocks) is byte-identical
-    to the unsharded XLA path, including block-count padding (b=6 pads
-    to 8) and the narrow-width fallback."""
-    rng = np.random.default_rng(13)
-    n = 512
-    low, high, dx = 0.0, 250.0, 0.001
-    pixels = spec.float_group_pixels(low, high, dx)
-    x = rng.uniform(0, 249.9, (6, n)).astype(np.float32)
-    x[3] = 10.0 + rng.uniform(0, 0.01, n).astype(np.float32)  # narrow
-
-    want = BlockEncoder(pallas=False).encode_float_blocks(
-        x, low, high, pixels)
-    got = BlockEncoder(mesh8, pallas=True).encode_float_blocks(
-        x, low, high, pixels)
-    assert got.payloads == want.payloads
-    np.testing.assert_array_equal(got.mins, want.mins)
-    np.testing.assert_array_equal(got.bits, want.bits)
-    assert want.bits[3] < want.bits[0]
-
-
-def test_pallas_encode_group_variant_byte_identical():
-    """At group-aligned shapes (n % 32*G*8 == 0) the encoder selects the
-    group-aligned kernel; bytes must still match the XLA path exactly."""
-    from minnow_tpu.ops import pallas_encode
-
-    rng = np.random.default_rng(14)
-    n = 16384  # 18-bit prediction -> G=64 -> alignment 16384
-    low, high, dx = 0.0, 250.0, 0.001
-    pixels = spec.float_group_pixels(low, high, dx)
-    assert pallas_encode.supported_group_enc(18, n, pixels)
-    x = rng.uniform(0, 249.9, (2, n)).astype(np.float32)
-    x[1, :8] = [0.0, 249.9] * 4  # pin width to the 18-bit prediction
-
-    want = BlockEncoder(pallas=False).encode_float_blocks(
-        x, low, high, pixels)
-    got = BlockEncoder(pallas=True).encode_float_blocks(
-        x, low, high, pixels)
-    assert got.payloads == want.payloads
-    np.testing.assert_array_equal(got.mins, want.mins)
-    np.testing.assert_array_equal(got.bits, want.bits)
-
-
-def test_pallas_encode_bigblock_path_byte_identical(monkeypatch):
-    """The two-dispatch big-block encode (XLA stats + stateless pack
-    kernel) is byte-identical to the XLA path.  The fused group kernel
-    is disabled so the selection takes the big-block branch at a
-    test-sized n (production: n > 512k)."""
-    from minnow_tpu.ops import pallas_encode
-
-    monkeypatch.setattr(pallas_encode, "supported_group_enc",
-                        lambda *a: False)
-    rng = np.random.default_rng(15)
-    n = 16384
-    low, high, dx = 0.0, 250.0, 0.001
-    pixels = spec.float_group_pixels(low, high, dx)
-    x = rng.uniform(0, 249.9, (2, n)).astype(np.float32)
-    x[0, :2] = [0.0, 249.9]
-    wrap = np.concatenate([rng.uniform(0, 2, n // 2),
-                           250.0 - rng.uniform(0, 2, n - n // 2)])
-    x[1] = wrap.astype(np.float32)  # periodic wrap cluster
-
-    want = BlockEncoder(pallas=False).encode_float_blocks(
-        x, low, high, pixels)
-    got = BlockEncoder(pallas=True).encode_float_blocks(
-        x, low, high, pixels)
-    assert got.payloads == want.payloads
-    np.testing.assert_array_equal(got.mins, want.mins)
-    np.testing.assert_array_equal(got.bits, want.bits)
-
-
-def test_float_block_stats_match_prepare():
-    """Stats-only prep == the materializing prep on every class of
-    block: random, narrow, wrap cluster, masked short, empty,
-    non-periodic."""
-    from minnow_tpu.ops import codec, fastdiv
-
-    rng = np.random.default_rng(16)
-    n = 512
-    low, high, dx = 0.0, 250.0, 0.001
-    pixels = spec.float_group_pixels(low, high, dx)
-    x = rng.uniform(0, 249.9, (6, n)).astype(np.float32)
-    x[1] = 100.0 + rng.uniform(0, 0.01, n).astype(np.float32)
-    wrap = np.concatenate([rng.uniform(0, 2, n // 2),
-                           250.0 - rng.uniform(0, 2, n - n // 2)])
-    x[2] = wrap.astype(np.float32)
-    lens = np.array([n, n, n, n // 4, 0, n], dtype=np.int64)
-    per = np.array([True, True, True, True, True, False])
-    lowv = np.full(6, low, np.float32)
-    pixv = np.full(6, pixels, np.int64)
-    dxq = np.full(6, spec.quantize_dx(low, high, pixels), np.float32)
-    db, deb, dm0, dm1, dok = fastdiv.divisor_magic(dxq)
-    assert dok.all()
-
-    _, mn_w, maxd_w, valid_w = codec.prepare_float_blocks_fast32(
-        x, lowv, pixv, lens, per, db, deb, dm0, dm1)
-    mn, maxd, m, valid = codec.float_block_stats32(
-        x, lowv, pixv, lens, per, db, deb, dm0, dm1)
-    keep = lens > 0  # empty blocks: stats are don't-care (min forced 0)
-    np.testing.assert_array_equal(np.asarray(mn)[keep],
-                                  np.asarray(mn_w)[keep])
-    np.testing.assert_array_equal(np.asarray(maxd)[keep],
-                                  np.asarray(maxd_w)[keep])
-    np.testing.assert_array_equal(np.asarray(valid),
-                                  np.asarray(valid_w))
-
-
-def test_pallas_encode_window_boundary_byte_identical():
-    """Periodic windows straddling exactly pixels//2 -- the boundary of
-    the wide-window select in the kernel's derived recentered stats --
-    must byte-match the XLA path on both sides."""
-    n = 512
-    low, high, dx = 0.0, 250.0, 0.001
-    pixels = spec.float_group_pixels(low, high, dx)
-    half = pixels // 2
-    rows = []
-    for span in (half - 2, half - 1, half, half + 1, half + 2):
-        # window anchored across the periodic seam: pixels
-        # {p-1, 0, .., span-1} -> width span+1 around the boundary
-        q = np.linspace(0, span - 1, n - 1).astype(np.int64)
-        xr = (q.astype(np.float64) * dx + dx * 0.25).astype(np.float32)
-        rows.append(np.concatenate([[np.float32(249.9995)], xr]))
-    x = np.stack(rows)
-
-    want = BlockEncoder(pallas=False).encode_float_blocks(
-        x, low, high, pixels)
-    got = BlockEncoder(pallas=True).encode_float_blocks(
-        x, low, high, pixels)
-    assert got.payloads == want.payloads
-    np.testing.assert_array_equal(got.mins, want.mins)
-    np.testing.assert_array_equal(got.bits, want.bits)
-    # the sweep must actually cross the select boundary
-    assert want.mins.min() != want.mins.max()
-
-
-def test_pallas_encode_path_unsupported_shape_falls_back():
-    rng = np.random.default_rng(12)
-    x = rng.uniform(0, 9.9, (3, 96)).astype(np.float32)  # n % 256 != 0
-    pixels = spec.float_group_pixels(0.0, 10.0, 0.01)
-    want = BlockEncoder(pallas=False).encode_float_blocks(
-        x, 0.0, 10.0, pixels)
-    got = BlockEncoder(pallas=True).encode_float_blocks(
-        x, 0.0, 10.0, pixels)
-    assert got.payloads == want.payloads
 
 
 def test_int_encode_fused_delta_pack_edges(mesh8):
@@ -439,69 +241,3 @@ def test_boundary_mesh_writer_byte_identical(tmp_path, mesh8):
     write(mesh_f, BlockEncoder(mesh8))
     assert open(host_f, "rb").read() == open(mesh_f, "rb").read()
 
-
-def test_int_encode_pallas_under_mesh(mesh8, monkeypatch):
-    """The int pack kernel under shard_map over the 8-device mesh
-    (interpret mode per device) produces spec-exact bytes, incl.
-    block-count padding (b=6 pads to 8)."""
-    from minnow_tpu.ops.pallas_codec import group_tiles
-
-    monkeypatch.setenv("MINNOW_TPU_PALLAS_SELFCHECK", "0")
-    monkeypatch.setenv("MINNOW_TPU_PALLAS_ENCODE", "1")
-    rng = np.random.default_rng(71)
-    n = 32 * group_tiles(41) * 8
-    x = rng.integers(0, 1 << 40, (6, n), dtype=np.int64)
-    x[0, 0], x[0, 1] = 0, (1 << 41) - 1
-    lens = np.full(6, n, np.int64)
-    lens[3] = n - 11
-    enc = BlockEncoder(mesh8).encode_int_blocks(x, lens=lens)
-    for i in range(6):
-        payload, mn, bits_i = spec.encode_int_block(x[i, :lens[i]])
-        assert enc.payloads[i] == payload, i
-        assert (int(enc.mins[i]), int(enc.bits[i])) == (mn, bits_i), i
-
-
-def test_bigblock_reuse_q_matches_legacy_and_group():
-    """The round-5 q-reuse big-block encode (stats pass materializes q,
-    pack-only kernel) is byte-identical to both the round-4
-    re-quantizing two-dispatch and the fused group kernel."""
-    from minnow_tpu.ops import fastdiv, pallas_encode
-
-    rng = np.random.default_rng(23)
-    n = 16384
-    low, high, dx = 0.0, 250.0, 0.001
-    pixels = spec.float_group_pixels(low, high, dx)
-    b = 3
-    x = rng.uniform(0, 249.9, (b, n)).astype(np.float32)
-    wrap = np.concatenate([rng.uniform(0, 2, n // 2),
-                           250.0 - rng.uniform(0, 2, n - n // 2)])
-    x[1] = wrap.astype(np.float32)
-    lowv = np.full(b, low, np.float32)
-    pixv = np.full(b, pixels, np.int64)
-    per = np.array([True, True, False])
-    dxq = np.full(b, spec.quantize_dx(low, high, pixels), np.float32)
-    db, deb, dm0, dm1, ok = fastdiv.divisor_magic(dxq)
-    assert ok.all()
-
-    from minnow_tpu.ops.pallas_codec import group_tiles
-
-    g = group_tiles(18)
-    x2d = x.reshape(-1, g * 32)
-    args = (x2d, lowv, db, deb, dm0, dm1, pixv, per, 18, n)
-    w_new, mn_new, maxd_new, v_new = \
-        pallas_encode.encode_float_pallas_bigblock(
-            *args, interpret=True, reuse_q=True)
-    w_old, mn_old, maxd_old, v_old = \
-        pallas_encode.encode_float_pallas_bigblock(
-            *args, interpret=True, reuse_q=False)
-    np.testing.assert_array_equal(np.asarray(w_new), np.asarray(w_old))
-    np.testing.assert_array_equal(np.asarray(mn_new),
-                                  np.asarray(mn_old))
-    np.testing.assert_array_equal(np.asarray(v_new), np.asarray(v_old))
-
-    w_g, mn_g, _, v_g = pallas_encode.encode_float_pallas_group(
-        x2d, lowv, db, deb, dm0, dm1, pixv, per, 18, n,
-        interpret=True)
-    np.testing.assert_array_equal(np.asarray(w_new), np.asarray(w_g))
-    np.testing.assert_array_equal(np.asarray(mn_new),
-                                  np.asarray(mn_g).astype(np.int64))
